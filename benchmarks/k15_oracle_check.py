@@ -1,15 +1,13 @@
 #!/usr/bin/env python
 """k=15 genome-scale differential: device pipeline vs the full native oracle.
 
-The sortscreen probe validates k <= 13 against the native sequential
-caller with the complete 4^k f64 rank chain; at k=15 that table is 8 GB
-and its stable argsort minutes of host time, so it runs once HERE (not
-per bench rep) to pin the round-4 claim: k=15 spans on a 100 Mb planted
-genome, on the real TPU, bit-identical to the C-conformant oracle —
-positions AND f64 scores (BASELINE configs 3-4; round-3 verdict
-missing #1).
+Small-genome tests check k <= 13 against the native sequential caller
+with the complete 4^k f64 rank chain; at k=15 that table is 8 GB, so
+the genome-scale check runs HERE: k=15 spans on a 100 Mb planted genome, on the device,
+bit-identical to the C-conformant oracle — positions AND f64 scores
+(BASELINE configs 3-4).
 
-Run: python benchmarks/k15_oracle_check.py > logs/k15_oracle_check.log 2>&1
+Run: python benchmarks/k15_oracle_check.py
 """
 import os
 import sys
@@ -28,14 +26,14 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from benchmarks.sortscreen_probe import make_genome
-    from kmer_spans_tpu.spans.pipeline import (
+    from bench import make_genome
+    from kmer_spans.spans.pipeline import (
         finish_spans,
         host_rank_chain,
         make_span_pipeline,
         unpack_outputs,
     )
-    from kmer_spans_tpu.utils import native
+    from kmer_spans.utils import native
 
     k = 15
     block = 8192

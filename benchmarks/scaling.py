@@ -64,7 +64,7 @@ def main():
     from jax.sharding import PartitionSpec as P
     from jax.experimental.shard_map import shard_map
 
-    from kmer_spans_tpu.parallel.pipeline import data_mesh, make_pipeline_step
+    from kmer_spans.parallel.pipeline import data_mesh, make_pipeline_step
 
     n_avail = len(jax.devices())
     sizes = [d for d in (1, 2, 4, 8, 16, 32) if d <= n_avail]

@@ -24,7 +24,7 @@ import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from kmer_spans_tpu.parallel.multihost import (  # noqa: E402
+from kmer_spans.parallel.multihost import (  # noqa: E402
     distributed_low_comp_regions,
 )
 

@@ -3,9 +3,10 @@
 import numpy as np
 import pytest
 
-from kmer_spans_tpu import api
-from kmer_spans_tpu.encoding import kmer_to_code
-from kmer_spans_tpu.utils.testgen import spectrum_checksum
+from kmer_spans import api
+from kmer_spans.encoding import kmer_to_code
+from kmer_spans.models.scoring import Log2MedianScoring
+from kmer_spans.utils.testgen import spectrum_checksum
 
 from conftest import random_seq
 
@@ -127,7 +128,7 @@ def test_window_kmer_dist_validation():
 
 
 def test_spectrum_file_roundtrip(tmp_path, golden):
-    from kmer_spans_tpu.io.fasta import write_fasta
+    from kmer_spans.io.fasta import write_fasta
 
     fa = tmp_path / "g.fa"
     write_fasta(fa, [("chr1", golden)])
@@ -149,7 +150,7 @@ def test_read_kmers_bad_magic(tmp_path):
 def test_fasta_reader(tmp_path):
     p = tmp_path / "t.fa"
     p.write_bytes(b">s1 descr\nACGT\nACGT\n>s2\nNNAC\n")
-    from kmer_spans_tpu.io.fasta import read_fasta
+    from kmer_spans.io.fasta import read_fasta
 
     recs = read_fasta(str(p))
     assert recs == [("s1", b"ACGTACGT"), ("s2", b"NNAC")]
@@ -174,7 +175,7 @@ def test_log2_median_model():
     # drift when the median count is the minimum (log2(1)=0), so region
     # separation requires a mid-distribution median — verified at the
     # model level here.
-    from kmer_spans_tpu.models.scoring import Log2MedianScoring
+    from kmer_spans.models.scoring import Log2MedianScoring
 
     counts = np.array([1, 4, 2, 1])  # total 8; weighted median count = 2
     m = Log2MedianScoring(counts)
@@ -187,13 +188,25 @@ def test_log2_median_model():
     assert np.isneginf(m2.weights[0])
 
 
+def test_kmer_spans_log2_median_absent_kmers_device_matches_host():
+    """log2 scoring gives absent k-mers -inf weights: the device weight
+    screen must quantize them soundly and match the host path exactly."""
+    seq = "ACGT" * 400 + "AG" * 300 + "TTGACA" * 300 + "ACGGT" * 200
+    kw = dict(scoring="log2_median", min_width=10, min_score=5.0)
+    d = api.kmer_spans(seq, 5, backend="jax", **kw)
+    h = api.kmer_spans(seq, 5, backend="host", **kw)
+    assert np.isneginf(Log2MedianScoring(h.counts).weights).any()
+    assert len(h.regions) > 0
+    assert d.regions.tolist() == h.regions.tolist()
+
+
 def test_kmer_spans_threshold_matches_oracle_pm1():
     # threshold scoring is a +/-1 weight table; cross-check via oracle
     seq = "ACGT" * 500 + "AG" * 300 + "TTGACA" * 300
     r = api.kmer_spans(seq, 2, scoring="threshold", min_width=10,
                        min_score=5.0, f_t=0.05, backend="host")
-    from kmer_spans_tpu.models.scoring import ThresholdScoring
-    from kmer_spans_tpu.oracle import count_spectrum, find_regions
+    from kmer_spans.models.scoring import ThresholdScoring
+    from kmer_spans.oracle import count_spectrum, find_regions
 
     counts, n = count_spectrum(seq, 2)
     model = ThresholdScoring(counts, 0.05)
@@ -223,7 +236,7 @@ def test_low_comp_fast_mode_matches_exact(golden, rng):
 
 
 def test_native_backend_bit_identical(golden):
-    from kmer_spans_tpu.utils import native as _native
+    from kmer_spans.utils import native as _native
 
     if not _native.available():
         pytest.skip("native toolchain unavailable")
@@ -238,7 +251,7 @@ def test_native_backend_bit_identical(golden):
 
 
 def test_native_backend_scan_counts(rng):
-    from kmer_spans_tpu.utils import native as _native
+    from kmer_spans.utils import native as _native
 
     if not _native.available():
         pytest.skip("native toolchain unavailable")

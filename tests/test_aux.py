@@ -1,17 +1,21 @@
 """Auxiliary subsystems: config, metrics, checkpoints, resume."""
 
+import json
 import logging
+import pathlib
+import re
 
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.config import SpanConfig
-from kmer_spans_tpu.io.checkpoint import (
+from kmer_spans.config import SpanConfig
+from kmer_spans.io.checkpoint import (
+    SPECTRUM_FORMAT,
     StreamCheckpoint,
     load_spectrum_sharded,
     save_spectrum_sharded,
 )
-from kmer_spans_tpu.utils.metrics import Metrics
+from kmer_spans.utils.metrics import Metrics
 
 
 def test_config_validation():
@@ -26,7 +30,7 @@ def test_config_validation():
 
 def test_metrics_phases(caplog):
     m = Metrics()
-    with caplog.at_level(logging.INFO, logger="kmer_spans_tpu"):
+    with caplog.at_level(logging.INFO, logger="kmer_spans"):
         with m.phase("count", bases=1000):
             pass
     s = m.summary()
@@ -40,6 +44,42 @@ def test_spectrum_sharded_roundtrip(tmp_path):
     save_spectrum_sharded(str(tmp_path / "ck"), counts, 6, n_shards=7)
     back, k = load_spectrum_sharded(str(tmp_path / "ck"))
     assert k == 6 and (back == counts).all()
+
+
+def _former_package_name():
+    """The package's former name, as the README's origin paragraph
+    gives it."""
+    readme = pathlib.Path(__file__).resolve().parents[1] / "README.md"
+    m = re.search(r"as the package\s+`(kmer_spans_\w+)`", readme.read_text())
+    assert m, "README names no former package"
+    return m.group(1)
+
+
+@pytest.mark.parametrize("fmt,loads", [
+    ("current", True),
+    ("former", True),
+    ("other.spectrum.v1", False),
+    ("kmer_spans.spectrum.v2", False),
+])
+def test_spectrum_sharded_manifest_format(tmp_path, fmt, loads):
+    """Manifests written before the package rename still load; other
+    formats are refused."""
+    counts = np.arange(4**5, dtype=np.int64)
+    d = tmp_path / "ck"
+    save_spectrum_sharded(str(d), counts, 5, n_shards=3)
+    manifest = json.loads((d / "manifest.json").read_text())
+    assert manifest["format"] == SPECTRUM_FORMAT
+    if fmt == "former":
+        manifest["format"] = _former_package_name() + ".spectrum.v1"
+    elif fmt != "current":
+        manifest["format"] = fmt
+    (d / "manifest.json").write_text(json.dumps(manifest))
+    if loads:
+        back, k = load_spectrum_sharded(str(d))
+        assert k == 5 and (back == counts).all()
+    else:
+        with pytest.raises(ValueError, match="not a kmer_spans"):
+            load_spectrum_sharded(str(d))
 
 
 def test_stream_checkpoint_roundtrip(tmp_path):
@@ -61,8 +101,8 @@ def test_stream_checkpoint_roundtrip(tmp_path):
 def test_stream_resume_matches_uninterrupted(tmp_path):
     """Kill-and-resume at chunk granularity reproduces the full run."""
     from conftest import random_seq
-    from kmer_spans_tpu.encoding import pack
-    from kmer_spans_tpu.parallel.stream import StreamingSpanPipeline
+    from kmer_spans.encoding import pack
+    from kmer_spans.parallel.stream import StreamingSpanPipeline
 
     rng = np.random.default_rng(4)
     seq = random_seq(rng, 30_000)
@@ -98,7 +138,7 @@ def test_stream_resume_matches_uninterrupted(tmp_path):
 
 
 def test_multihost_initialize_noop_single_process():
-    from kmer_spans_tpu.parallel.multihost import (
+    from kmer_spans.parallel.multihost import (
         global_data_mesh,
         initialize,
     )

@@ -6,8 +6,8 @@ import sys
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.cli import main
-from kmer_spans_tpu.io.fasta import write_fasta
+from kmer_spans.cli import main
+from kmer_spans.io.fasta import write_fasta
 
 
 @pytest.fixture()
@@ -46,8 +46,8 @@ def test_cli_count_spectrum_file(fasta, tmp_path, capsys):
     out_bin = str(tmp_path / "spec.bin")
     _run(["count", fasta, "-k", "8", "--backend", "host", "--out", out_bin],
          capsys)
-    from kmer_spans_tpu.io.spectrum_file import read_kmers
-    from kmer_spans_tpu.utils.testgen import spectrum_checksum
+    from kmer_spans.io.spectrum_file import read_kmers
+    from kmer_spans.utils.testgen import spectrum_checksum
 
     back = read_kmers(out_bin)
     assert back["k"] == [8]
@@ -71,7 +71,7 @@ def test_cli_kmers(capsys):
 
 
 def test_cli_regions(fasta, tmp_path, capsys):
-    from kmer_spans_tpu.encoding import all_kmers
+    from kmer_spans.encoding import all_kmers
 
     scores = tmp_path / "scores.tsv"
     with open(scores, "w") as fh:
@@ -116,7 +116,7 @@ def test_cli_stream_multi_scaffold(tmp_path, golden, capsys):
     # spectrum must accumulate across scaffolds before scanning (reference
     # kmer_low_comp_regions semantics): splitting the golden genome into
     # two scaffolds away from the islands preserves the three regions
-    from kmer_spans_tpu.io.fasta import write_fasta
+    from kmer_spans.io.fasta import write_fasta
 
     fa = tmp_path / "multi.fa"
     write_fasta(fa, [("s1", golden[:40_000]), ("s2", golden[40_000:])])
@@ -133,8 +133,8 @@ def test_cli_stream_multi_scaffold(tmp_path, golden, capsys):
 
 
 def test_cli_lr(tmp_path, capsys):
-    from kmer_spans_tpu.encoding import all_kmers
-    from kmer_spans_tpu.io.fasta import write_fasta
+    from kmer_spans.encoding import all_kmers
+    from kmer_spans.io.fasta import write_fasta
 
     fa = tmp_path / "cpg.fa"
     write_fasta(fa, [("s", "ATATATATCGCGCGCGCGCGATATATATATATATATCGCGCG")])

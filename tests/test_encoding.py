@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.encoding import (
+from kmer_spans.encoding import (
     MAX_K,
     PackedSeq,
     all_kmers,

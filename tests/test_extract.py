@@ -8,9 +8,9 @@ and the scan-count double-counting quirk — on adversarial random inputs.
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.encoding import kmer_codes_np, pack
-from kmer_spans_tpu.oracle import count_spectrum, find_regions, weighted_ranks
-from kmer_spans_tpu.spans.extract import extract_spans
+from kmer_spans.encoding import kmer_codes_np, pack
+from kmer_spans.oracle import count_spectrum, find_regions, weighted_ranks
+from kmer_spans.spans.extract import extract_spans
 
 from conftest import random_seq
 

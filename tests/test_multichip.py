@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.encoding import pack
-from kmer_spans_tpu.oracle import count_spectrum, weighted_ranks
-from kmer_spans_tpu.parallel.pipeline import data_mesh, make_pipeline_step
-from kmer_spans_tpu.stats.ranks import cumulative_mass
+from kmer_spans.encoding import pack
+from kmer_spans.oracle import count_spectrum, weighted_ranks
+from kmer_spans.parallel.pipeline import data_mesh, make_pipeline_step
+from kmer_spans.stats.ranks import cumulative_mass
 
 from conftest import random_seq
 
@@ -49,7 +49,7 @@ def test_sharded_pipeline_matches_oracle(mesh, seed, k, thr):
     assert (counts == oc).all(), "psum'd sharded spectrum != oracle"
 
     # scored mask parity: segment ends/warm-ups/terminator all excluded
-    from kmer_spans_tpu.encoding import kmer_codes_np
+    from kmer_spans.encoding import kmer_codes_np
 
     codes_h, kv = kmer_codes_np(p, k)
     nv = np.zeros(p.n, bool)
@@ -76,7 +76,7 @@ def test_sharded_mass_equals_host_mass(mesh):
     counts, S, scored, p = _run(mesh, seq, k, 0.5)
     oc, _ = count_spectrum(seq, k)
     # device _rank_mass must equal the exact host integer mass
-    from kmer_spans_tpu.parallel.pipeline import _rank_mass
+    from kmer_spans.parallel.pipeline import _rank_mass
 
     dev_mass = np.asarray(_rank_mass(jnp.asarray(oc.astype(np.int32))))
     host_mass = cumulative_mass(oc)

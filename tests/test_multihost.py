@@ -1,7 +1,7 @@
 """Simulated multi-process run: 2 jax.distributed CPU processes.
 
 The reference's only parallel harness is a 20-core mclapply fork
-(test.R:550-565); the TPU-native analog is jax.distributed over hosts.
+(test.R:550-565); the device analog is jax.distributed over hosts.
 This test spawns two REAL processes (4 virtual CPU devices each, Gloo
 collectives), runs the full distributed pipeline — per-process chunk
 materialization, sharded spectrum + wide rank, all-to-all mass fetch,
@@ -18,8 +18,8 @@ import sys
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.oracle import find_regions, weighted_ranks
-from kmer_spans_tpu.oracle.reference import count_spectrum
+from kmer_spans.oracle import find_regions, weighted_ranks
+from kmer_spans.oracle.reference import count_spectrum
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _WORKER = os.path.join(_REPO, "tests", "multihost_worker.py")

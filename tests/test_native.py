@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.encoding import pack
-from kmer_spans_tpu.oracle import count_spectrum, find_regions, weighted_ranks
-from kmer_spans_tpu.utils import native
-from kmer_spans_tpu.utils.testgen import spectrum_checksum
+from kmer_spans.encoding import pack
+from kmer_spans.oracle import count_spectrum, find_regions, weighted_ranks
+from kmer_spans.utils import native
+from kmer_spans.utils.testgen import spectrum_checksum
 
 from conftest import random_seq
 
@@ -139,7 +139,7 @@ def test_mass_of_codes_matches_oracle_chain():
     k >= 14 replay path that never builds a 4^k rank table."""
     if not native.available():
         pytest.skip("native library unavailable")
-    from kmer_spans_tpu.stats.ranks import chain_ranks_from_mass
+    from kmer_spans.stats.ranks import chain_ranks_from_mass
 
     rng = np.random.default_rng(6)
     size = 4096  # k=6
@@ -160,8 +160,8 @@ def test_mass_of_codes_matches_oracle_chain():
 def test_native_rank_chain_bit_identical():
     """ks_rank_chain (sort-free: value histogram + per-value cursors) ==
     the numpy argsort chain, bit for bit — zeros, ties, a > 2^16 value."""
-    from kmer_spans_tpu.oracle import weighted_ranks
-    from kmer_spans_tpu.utils import native
+    from kmer_spans.oracle import weighted_ranks
+    from kmer_spans.utils import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -178,8 +178,8 @@ def test_native_chain_from_hist_boundaries():
     """ks_chain_from_hist: p=0 queries, mid-group, group-boundary, and
     the pm == total-mass query all match the numpy fold; invalid pm
     raises."""
-    from kmer_spans_tpu.stats.ranks import chain_ranks_from_mass
-    from kmer_spans_tpu.utils import native
+    from kmer_spans.stats.ranks import chain_ranks_from_mass
+    from kmer_spans.utils import native
 
     if not native.available():
         pytest.skip("native library unavailable")

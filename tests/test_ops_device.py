@@ -1,16 +1,16 @@
 """Device ops vs oracle: codes, counting, scan — differential tests on CPU
-(8 virtual devices; same code path compiles for TPU)."""
+(8 virtual devices; the same code path compiles for the GPU)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.encoding import kmer_codes_np, pack
-from kmer_spans_tpu.ops.codes import kmer_codes
-from kmer_spans_tpu.ops.count import count_spectrum_scatter, count_spectrum_sort
-from kmer_spans_tpu.ops.scan import span_scan, span_scan_blocked
-from kmer_spans_tpu.oracle import count_spectrum
+from kmer_spans.encoding import kmer_codes_np, pack
+from kmer_spans.ops.codes import kmer_codes
+from kmer_spans.ops.count import count_spectrum_scatter, count_spectrum_sort
+from kmer_spans.ops.scan import span_scan, span_scan_blocked
+from kmer_spans.oracle import count_spectrum
 
 from conftest import random_seq
 
@@ -89,7 +89,7 @@ def test_span_scan_carry_composes():
     S1, (A1, B1) = span_scan(jnp.asarray(s[:1000]), jnp.asarray(scored[:1000]))
     S2, _ = span_scan(jnp.asarray(s[1000:]), jnp.asarray(scored[1000:]))
     # apply carry to second block's prefixes
-    from kmer_spans_tpu.ops.scan import score_elements, _combine
+    from kmer_spans.ops.scan import score_elements, _combine
     import jax.lax as lax
 
     a, b = score_elements(jnp.asarray(s[1000:]), jnp.asarray(scored[1000:]))
@@ -101,21 +101,25 @@ def test_span_scan_carry_composes():
     )
 
 
-@pytest.mark.parametrize("k", [2, 4, 8])
-def test_mxu_count_matches_oracle(rng, k):
-    from kmer_spans_tpu.ops.mxu import mxu_count_spectrum
-    from kmer_spans_tpu.ops.blocked import blocked_codes
+@pytest.mark.parametrize("size,shape,hot", [
+    (64, (5000,), False),
+    (4 ** 4, (5000,), True),
+    (4 ** 8, (64, 512), True),
+    (1000, (3, 4000), False),
+    (256 * 256, (40000,), False),
+])
+def test_histogram_matches_bincount(size, shape, hot):
+    """ops.count.histogram == np.bincount over the valid values, at
+    power-of-four, non-power-of-two and (value, high-byte) table sizes;
+    ``hot`` piles a fifth of the values into one bin (a repeat island)."""
+    from kmer_spans.ops.count import histogram
 
-    seq = _rand(rng, 40_000, n_prob=0.01)
-    p = pack(seq)
-    oracle_counts, n = count_spectrum(p, k)
-    block = 512
-    npad = -(-p.n // block) * block
-    b = np.zeros(npad, np.uint8); b[: p.n] = p.bases
-    v = np.zeros(npad, bool); v[: p.n] = p.valid
-    codes, kv = blocked_codes(
-        jnp.asarray(b).reshape(-1, block).astype(jnp.int32),
-        jnp.asarray(v).reshape(-1, block), k,
-    )
-    dev = np.asarray(mxu_count_spectrum(codes, kv, k))
-    assert (dev == oracle_counts).all()
+    r = np.random.default_rng(size)
+    vals = r.integers(0, size, size=shape).astype(np.int32)
+    if hot:
+        vals.reshape(-1)[: vals.size // 5] = size // 3
+    valid = r.random(shape) > 0.25
+    got = np.asarray(histogram(jnp.asarray(vals), jnp.asarray(valid), size))
+    ref = np.bincount(vals[valid], minlength=size)
+    assert got.dtype == np.int32 and got.shape == (size,)
+    assert np.array_equal(got, ref)

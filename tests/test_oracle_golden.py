@@ -1,21 +1,21 @@
 """Golden conformance vectors from SURVEY.md Appendix B and test.R hand traces.
 
 These pin the sequential oracle to the probe-verified behavior of the
-reference C core; the vectorized TPU path is then tested against the oracle.
+reference C core; the vectorized device path is then tested against the oracle.
 """
 
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.encoding import kmer_to_code
-from kmer_spans_tpu.oracle import (
+from kmer_spans.encoding import kmer_to_code
+from kmer_spans.oracle import (
     count_spectrum,
     find_regions,
     find_tr_regions,
     weighted_ranks,
     windowed_distributions,
 )
-from kmer_spans_tpu.utils.testgen import spectrum_checksum
+from kmer_spans.utils.testgen import spectrum_checksum
 
 
 def test_golden_spectrum_k8(golden):

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.oracle import count_spectrum
-from kmer_spans_tpu.spans.pm_pipeline import (
+from kmer_spans.oracle import count_spectrum
+from kmer_spans.spans.pm_pipeline import (
     finish_pm_spans,
     make_pm_span_pipeline,
     make_wide_pm_pipeline,
@@ -37,8 +37,8 @@ def _arr(seq, block):
 
 
 def _screen_dict(seq, k, block=512, **kw):
-    from kmer_spans_tpu.ops.blocked import blocked_codes
-    from kmer_spans_tpu.ops.pmscreen import pm_sort_screen
+    from kmer_spans.ops.blocked import blocked_codes
+    from kmer_spans.ops.pmscreen import pm_sort_screen
 
     arr, n = _arr(seq, block)
     b2 = jnp.asarray(arr & 3).reshape(-1, block).astype(jnp.int32)
@@ -54,8 +54,8 @@ def _sparse_cm(seq, k):
     """(code -> exact cumulative mass) lookup via the SPARSE oracle —
     O(distinct) host cost so k = 14/15 stay test-sized (a dense 4^15
     table is 8 GB and minutes of argsort on this box)."""
-    from kmer_spans_tpu.oracle import count_spectrum_sparse
-    from kmer_spans_tpu.stats.ranks import sparse_mass
+    from kmer_spans.oracle import count_spectrum_sparse
+    from kmer_spans.stats.ranks import sparse_mass
 
     ucodes, ucounts, nk = count_spectrum_sparse(seq, k)
     pm_u, vhist, total = sparse_mass(ucodes, ucounts)
@@ -90,7 +90,7 @@ def test_pm_exact_mass(k, strategy):
     dev = kv & (pm >= 0)
     assert np.array_equal(pm[dev], cm_lookup(codes[dev]))
     # sentinel positions resolve in the list, to the exact mass
-    from kmer_spans_tpu.spans.pm_pipeline import _pm_host_tables
+    from kmer_spans.spans.pm_pipeline import _pm_host_tables
 
     t_list = scr["t_list"]
     out = {"total": nk, "vh": scr["vh"],
@@ -131,8 +131,8 @@ def test_pm_pipeline_matches_oracle(k):
 
 
 def test_pm_pipeline_k15_smallv():
-    from kmer_spans_tpu.oracle import count_spectrum_sparse, find_regions
-    from kmer_spans_tpu.stats.ranks import SparseRanks
+    from kmer_spans.oracle import count_spectrum_sparse, find_regions
+    from kmer_spans.stats.ranks import SparseRanks
 
     k = 15
     rng = np.random.default_rng(77)
@@ -160,10 +160,10 @@ def test_pm_pipeline_k15_smallv():
 
 def test_pm_scores_sound():
     """s_int/SCALE >= rank - thr at every scored position (upper bound)."""
-    from kmer_spans_tpu.ops.blocked import blocked_codes, blocked_scored
-    from kmer_spans_tpu.ops.gather import SCREEN_SCALE, screen_thr_q
-    from kmer_spans_tpu.ops.pmscreen import pm_scores_int, pm_sort_screen
-    from kmer_spans_tpu.oracle import weighted_ranks
+    from kmer_spans.ops.blocked import blocked_codes, blocked_scored
+    from kmer_spans.ops.gather import SCREEN_SCALE, screen_thr_q
+    from kmer_spans.ops.pmscreen import pm_scores_int, pm_sort_screen
+    from kmer_spans.oracle import weighted_ranks
 
     k = 12
     rng = np.random.default_rng(55)
@@ -206,8 +206,8 @@ def test_pm_list_overflow_flags_fallback():
 
 def test_wide_pm_pipeline_matches_oracle():
     """k=17 device-complete: no sparse host recount anywhere."""
-    from kmer_spans_tpu.oracle import count_spectrum_sparse, find_regions
-    from kmer_spans_tpu.stats.ranks import SparseRanks
+    from kmer_spans.oracle import count_spectrum_sparse, find_regions
+    from kmer_spans.stats.ranks import SparseRanks
 
     k = 17
     rng = np.random.default_rng(19)
@@ -235,10 +235,10 @@ def test_pm_screen_adversarial_inputs(case):
     """Degenerate inputs: one giant run (every position in the clip
     list's range), all-N (zero counted k-mers), a sequence barely
     longer than k, and a two-code alternation."""
-    from kmer_spans_tpu.ops.blocked import blocked_codes
-    from kmer_spans_tpu.ops.pmscreen import pm_sort_screen
-    from kmer_spans_tpu.oracle import count_spectrum_sparse
-    from kmer_spans_tpu.stats.ranks import sparse_mass
+    from kmer_spans.ops.blocked import blocked_codes
+    from kmer_spans.ops.pmscreen import pm_sort_screen
+    from kmer_spans.oracle import count_spectrum_sparse
+    from kmer_spans.stats.ranks import sparse_mass
 
     k = 12
     if case == "poly":
@@ -266,7 +266,7 @@ def test_pm_screen_adversarial_inputs(case):
     pm = np.asarray(scr["pm"]).astype(np.int64)
     kvn = np.asarray(kv).reshape(-1)
     cn = np.asarray(codes).reshape(-1)
-    from kmer_spans_tpu.spans.pm_pipeline import _pm_host_tables
+    from kmer_spans.spans.pm_pipeline import _pm_host_tables
 
     out = {"total": nk, "vh": np.asarray(scr["vh"]),
            "list_codes": np.asarray(scr["list_codes"]).astype(np.int64),
@@ -287,7 +287,7 @@ def test_pm_screen_adversarial_inputs(case):
 def test_pm_choose_params_strategy_flip():
     """The n-adaptive strategy must flip packed->smallv as counts get
     sparse, with the expected-list bound respected."""
-    from kmer_spans_tpu.ops.pmscreen import choose_params, PM_CAP_SMALLV
+    from kmer_spans.ops.pmscreen import choose_params, PM_CAP_SMALLV
 
     # k=13 at chunk scale: smallv with a raised T
     s, t = choose_params(13, 100_663_296)
@@ -307,8 +307,8 @@ def test_api_packed_retry_on_smallv_overflow(monkeypatch):
     """api fast path: a smallv run-list overflow retries with the
     packed-key strategy (which clips high counts into the key) before
     surrendering to the exact host path."""
-    from kmer_spans_tpu import api as apimod
-    from kmer_spans_tpu.spans.pm_pipeline import make_pm_span_pipeline
+    from kmer_spans import api as apimod
+    from kmer_spans.spans.pm_pipeline import make_pm_span_pipeline
 
     calls = []
 

@@ -11,9 +11,9 @@ implementations, spans device vs sequential oracle, bit-identical.
 import numpy as np
 import pytest
 
-from kmer_spans_tpu import api
-from kmer_spans_tpu.encoding import PackedSeq, kmer_to_code
-from kmer_spans_tpu.utils.testgen import realistic_genome
+from kmer_spans import api
+from kmer_spans.encoding import PackedSeq, kmer_to_code
+from kmer_spans.utils.testgen import realistic_genome
 
 
 @pytest.fixture(scope="module")
@@ -47,9 +47,9 @@ def test_composition_and_cpg_depletion(genome):
 
 def test_counts_cross_validated_three_ways(genome):
     """oracle (numpy segment decomposition) == native C walker == device
-    one-hot MXU counter — exact equality on realistic input."""
-    from kmer_spans_tpu.oracle import count_spectrum
-    from kmer_spans_tpu.utils import native
+    histogram counter — exact equality on realistic input."""
+    from kmer_spans.oracle import count_spectrum
+    from kmer_spans.utils import native
 
     p = _packed(genome)
     k = 6

@@ -8,12 +8,12 @@ the independent referee.
 import numpy as np
 import pytest
 
-from kmer_spans_tpu import api
-from kmer_spans_tpu.encoding import pack
-from kmer_spans_tpu.oracle import weighted_ranks
-from kmer_spans_tpu.parallel.stream import StreamingSpanPipeline
-from kmer_spans_tpu.stats.ranks import cumulative_mass
-from kmer_spans_tpu.utils import native
+from kmer_spans import api
+from kmer_spans.encoding import pack
+from kmer_spans.oracle import weighted_ranks
+from kmer_spans.parallel.stream import StreamingSpanPipeline
+from kmer_spans.stats.ranks import cumulative_mass
+from kmer_spans.utils import native
 
 N = 2_000_000
 K = 8

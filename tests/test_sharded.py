@@ -4,14 +4,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.encoding import pack
-from kmer_spans_tpu.oracle import count_spectrum
-from kmer_spans_tpu.parallel.pipeline import data_mesh
-from kmer_spans_tpu.parallel.sharded import (
+from kmer_spans.encoding import pack
+from kmer_spans.oracle import count_spectrum
+from kmer_spans.parallel.pipeline import data_mesh
+from kmer_spans.parallel.sharded import (
     make_sharded_count_step,
     make_sharded_rank_step,
 )
-from kmer_spans_tpu.stats.ranks import cumulative_mass
+from kmer_spans.stats.ranks import cumulative_mass
 
 from conftest import random_seq
 

@@ -12,13 +12,13 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from kmer_spans_tpu.oracle import weighted_ranks
-from kmer_spans_tpu.parallel.sharded_scan import (
+from kmer_spans.oracle import weighted_ranks
+from kmer_spans.parallel.sharded_scan import (
     make_sharded_rank_step_wide,
     sharded_low_comp_regions,
 )
-from kmer_spans_tpu.spans.pipeline import host_rank_mass
-from kmer_spans_tpu.utils import native
+from kmer_spans.spans.pipeline import host_rank_mass
+from kmer_spans.utils import native
 
 
 def mesh8():
@@ -29,7 +29,7 @@ def mesh8():
 
 
 def test_pair_cumsum_matches_int64():
-    from kmer_spans_tpu.ops.wide import pair_cumsum, split
+    from kmer_spans.ops.wide import pair_cumsum, split
 
     rng = np.random.default_rng(0)
     # values big enough that the running total crosses 2^31 many times
@@ -43,7 +43,7 @@ def test_pair_cumsum_matches_int64():
 
 
 def test_pair_scatter_add_matches_int64():
-    from kmer_spans_tpu.ops.wide import pair_scatter_add
+    from kmer_spans.ops.wide import pair_scatter_add
 
     rng = np.random.default_rng(1)
     idx = rng.integers(0, 64, size=200_000).astype(np.int32)
@@ -114,7 +114,7 @@ def test_sharded_rank_wide_matches_real_spectrum(golden):
 
 
 def _to_nbases(seq):
-    from kmer_spans_tpu.encoding import pack
+    from kmer_spans.encoding import pack
 
     ps = pack(seq)
     return np.where(ps.valid, ps.bases, 4).astype(np.uint8)
@@ -135,6 +135,7 @@ def test_sharded_scan_golden_bitexact(golden):
         mesh, nb, k, min_width=100, min_score=20.0,
         thr=0.75, block=512, cand_blocks=12)
     assert not res.fallback and not res.overflow
+    assert res.devices == 8
     expect = _oracle_regions(nb, k, 100, 20.0, 0.75)
     assert [(b, e) for _, b, e, _ in res.regions] == [
         (b, e) for b, e, _ in expect]
@@ -193,7 +194,7 @@ def test_sharded_scan_fallback_flagged(rng):
 def test_chain_ranks_from_mass_bitexact(seed, lam):
     """chain_ranks_from_mass == oracle.weighted_ranks for every k-mer,
     including heavy count ties and the chunked streaming path."""
-    from kmer_spans_tpu.stats.ranks import (
+    from kmer_spans.stats.ranks import (
         chain_ranks_from_mass,
         cumulative_mass,
     )
@@ -212,7 +213,7 @@ def test_chain_ranks_from_mass_bitexact(seed, lam):
 
 
 def test_chain_ranks_rejects_bad_mass():
-    from kmer_spans_tpu.stats.ranks import chain_ranks_from_mass
+    from kmer_spans.stats.ranks import chain_ranks_from_mass
 
     vh = np.zeros(8, np.int64)
     vh[3] = 12  # four codes with count 3
@@ -243,3 +244,46 @@ def test_sharded_scan_k13_no_host_table(rng):
     want = [(b, e, s) for b, e, s in expect]
     assert got == want
     assert len(got) >= 1
+
+
+@pytest.mark.parametrize("case", ["edge_run", "three_device_run"])
+def test_run_max_across_devices(case):
+    """Blocks of a run that crosses device edges rank by the WHOLE run's
+    max on every device (the top-C pull then covers the run's tail on
+    the next device), matching a global numpy segmented max."""
+    from jax.sharding import PartitionSpec as P
+
+    from kmer_spans.parallel.sharded_scan import run_max_across_devices
+
+    n_dev, per = 4, 6
+    nb = n_dev * per
+    rng = np.random.default_rng(3)
+    bmax = rng.uniform(0.0, 10.0, nb).astype(np.float32)
+    linked = rng.random(nb) < 0.3
+    if case == "edge_run":
+        # run over blocks 9..14: devices 1 and 2, peak on device 1
+        linked[9] = False
+        linked[10:15] = True
+        linked[15] = False
+        bmax[10] = 100.0
+    else:
+        # run over blocks 4..15: devices 0, 1 (whole) and 2, peak on 0
+        linked[4] = False
+        linked[5:16] = True
+        linked[16] = False
+        bmax[4] = 100.0
+    linked[0] = False
+    starts = np.nonzero(~linked)[0]
+    run_of = np.cumsum(~linked) - 1
+    want = np.maximum.reduceat(bmax, starts)[run_of]
+
+    mesh = Mesh(np.array(jax.devices()[:n_dev]), ("data",))
+
+    def body(b, lk):
+        me = jax.lax.axis_index("data")
+        return run_max_across_devices(b, lk, "data", n_dev, me)
+
+    fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(P("data"),) * 2,
+                               out_specs=P("data"), check_vma=False))
+    got = np.asarray(fn(jnp.asarray(bmax), jnp.asarray(linked)))
+    assert np.array_equal(got, want)

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.oracle import count_spectrum
-from kmer_spans_tpu.spans.pipeline import (
+from kmer_spans.oracle import count_spectrum
+from kmer_spans.spans.pipeline import (
     finish_spans,
     make_span_pipeline,
     unpack_outputs,
@@ -108,11 +108,11 @@ def test_sort_screen_soundness_under_value_clip():
     """Count values >= vmax fall into the clipped class bucket; the screen
     must stay a sound upper bound: s_int/SCALE >= rank - thr at every
     scored position, for a tiny vmax that everything overflows."""
-    from kmer_spans_tpu.encoding import pack
-    from kmer_spans_tpu.ops.gather import SCREEN_SCALE, screen_thr_q
-    from kmer_spans_tpu.ops.sortscreen import sort_screen_scores
-    from kmer_spans_tpu.oracle import weighted_ranks
-    from kmer_spans_tpu.ops.blocked import (
+    from kmer_spans.encoding import pack
+    from kmer_spans.ops.gather import SCREEN_SCALE, screen_thr_q
+    from kmer_spans.ops.sortscreen import sort_screen_scores
+    from kmer_spans.oracle import weighted_ranks
+    from kmer_spans.ops.blocked import (
         blocked_codes,
         blocked_scored,
     )
@@ -148,7 +148,7 @@ def test_sort_screen_k14_big_rank_path():
     """k=14 end to end: sort screen + host recount + the candidate-only
     native rank path (finish_spans never builds a 4^14 f64 chain table).
     Oracle-identical spans and bit-identical f64 scores."""
-    from kmer_spans_tpu.utils import native
+    from kmer_spans.utils import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -175,8 +175,8 @@ def test_sort_screen_k14_big_rank_path():
     # expected side: the fast exact chain (bit-identical to the oracle's
     # weighted_ranks — test_host_rank_chain_bit_identical_to_oracle; the
     # pure-python oracle takes minutes at 4^14) + the sequential caller
-    from kmer_spans_tpu.oracle import find_regions
-    from kmer_spans_tpu.spans.pipeline import host_rank_chain
+    from kmer_spans.oracle import find_regions
+    from kmer_spans.spans.pipeline import host_rank_chain
 
     ranks = host_rank_chain(counts, int(nk))
     expect = find_regions(seq, 0, 30, 5.0, ranks, k, 0.75)

@@ -9,7 +9,7 @@ windowed engine's empirical distribution must match in mean and variance.
 import numpy as np
 import pytest
 
-from kmer_spans_tpu import api
+from kmer_spans import api
 
 from conftest import random_seq
 
@@ -116,7 +116,7 @@ def test_inter_dimer_distance_geometric():
     """test.R:247-312: distances between same-parity occurrences of a
     non-self-overlapping dimer on an i.i.d. sequence follow the
     geometric distribution pmf p*(1-p)^(d-1) (d in dimer steps)."""
-    from kmer_spans_tpu.encoding import kmer_codes_np, kmer_to_code, pack
+    from kmer_spans.encoding import kmer_codes_np, kmer_to_code, pack
 
     rng = np.random.default_rng(7)
     probs = np.array([0.3, 0.25, 0.25, 0.2])

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.encoding import pack
-from kmer_spans_tpu.oracle import count_spectrum, find_regions
-from kmer_spans_tpu.parallel.stream import StreamingSpanPipeline
-from kmer_spans_tpu.stats.ranks import cumulative_mass
+from kmer_spans.encoding import pack
+from kmer_spans.oracle import count_spectrum, find_regions
+from kmer_spans.parallel.stream import StreamingSpanPipeline
+from kmer_spans.stats.ranks import cumulative_mass
 
 from conftest import random_seq
 
@@ -104,8 +104,8 @@ def test_stream_64mb_matches_native():
     test was 2 Mb): stresses int32 block-count boundaries, chunk
     stitching across 16 chunks, and an N gap straddling a chunk edge.
     Spans AND scores must equal the native oracle exactly (~60 s)."""
-    from kmer_spans_tpu.oracle import weighted_ranks
-    from kmer_spans_tpu.utils import native
+    from kmer_spans.oracle import weighted_ranks
+    from kmer_spans.utils import native
 
     N = 64 * 1024 * 1024
     rng = np.random.default_rng(42)

@@ -10,13 +10,13 @@ host (the reference kmer_regions contract, src/kmer_spans.c:490-546).
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.models.scoring import (
+from kmer_spans.models.scoring import (
     Log2MedianScoring,
     ThresholdScoring,
     WeightScoring,
 )
-from kmer_spans_tpu.oracle import count_spectrum, find_regions
-from kmer_spans_tpu.parallel.stream import StreamingSpanPipeline
+from kmer_spans.oracle import count_spectrum, find_regions
+from kmer_spans.parallel.stream import StreamingSpanPipeline
 
 from conftest import random_seq
 from test_stream import _chunks, _nbases
@@ -59,7 +59,7 @@ def test_stream_weight_scoring():
     k = 2
     seq = _planted(1)
     w = np.full(16, -0.6)
-    from kmer_spans_tpu.encoding import kmer_to_code
+    from kmer_spans.encoding import kmer_to_code
 
     w[kmer_to_code("AG")] = 1.0
     w[kmer_to_code("GA")] = 1.0
@@ -92,7 +92,7 @@ def test_stream_log2_median_scoring():
     # sits at s ~ 0 for half of all positions by construction (the
     # weighted median), which no bounded-margin streaming can stitch —
     # the practical streaming parameterization subtracts a margin
-    from kmer_spans_tpu.models.scoring import ScoringModel
+    from kmer_spans.models.scoring import ScoringModel
 
     k = 4
     seq = _planted(3)
@@ -114,7 +114,7 @@ def test_weight_screen_min_score_zero_no_fallback(monkeypatch):
     """kmer_regions with min_score=0 through the jax backend: candidate
     blocks beyond the speculative top-C are fetched by the exact
     post-candidacy pull — no host fallback, oracle-identical output."""
-    import kmer_spans_tpu.api as api
+    import kmer_spans.api as api
 
     k = 3
     rng = np.random.default_rng(11)
@@ -124,13 +124,13 @@ def test_weight_screen_min_score_zero_no_fallback(monkeypatch):
         s[pos: pos + 400] = "CA" * 200
     seq = "".join(s)
     w = np.full(64, -0.4)
-    from kmer_spans_tpu.encoding import kmer_to_code
+    from kmer_spans.encoding import kmer_to_code
 
     w[kmer_to_code("CAC")] = 1.0
     w[kmer_to_code("ACA")] = 1.0
-    from kmer_spans_tpu.oracle import find_regions as oracle_find
+    from kmer_spans.oracle import find_regions as oracle_find
 
-    from kmer_spans_tpu.encoding import pack
+    from kmer_spans.encoding import pack
 
     expect = oracle_find(pack(seq), 0, 50, 0.0, w, k, 0.0)
     assert len(expect) >= 16

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.encoding import kmer_to_code, pack
-from kmer_spans_tpu.oracle import find_tr_regions
-from kmer_spans_tpu.spans.tr_pipeline import (
+from kmer_spans.encoding import kmer_to_code, pack
+from kmer_spans.oracle import find_tr_regions
+from kmer_spans.spans.tr_pipeline import (
     finish_tr_spans,
     make_tr_pipeline,
     replay_tr_segment,
@@ -25,7 +25,7 @@ def _tables(k, cpg_seed=2.0, cpg_trans=2.0, other_seed=-1.0, other_trans=-0.5):
 
 
 def _run(seq, k, ks, ts, min_len, block=512, cand=32):
-    from kmer_spans_tpu.spans.tr_pipeline import quantize_tr_tables
+    from kmer_spans.spans.tr_pipeline import quantize_tr_tables
 
     p = pack(seq)
     nb = p.bases.copy()
@@ -91,7 +91,7 @@ def test_replay_tr_matches_oracle_direct():
     ks, ts = _tables(k)
     expect = find_tr_regions(seq, 1, k, ks, ts, 10)
 
-    from kmer_spans_tpu.encoding import kmer_codes_np
+    from kmer_spans.encoding import kmer_codes_np
 
     p = pack(seq)
     codes, kv = kmer_codes_np(p, k)
@@ -140,7 +140,7 @@ def test_stream_tr_matches_oracle_and_oneshot(seed):
     pulls) == the sequential oracle AND the one-shot device path —
     positions and bit-identical f64 scores, islands planted across
     chunk edges."""
-    from kmer_spans_tpu.spans.tr_pipeline import stream_tr_regions
+    from kmer_spans.spans.tr_pipeline import stream_tr_regions
 
     rng = np.random.default_rng(60 + seed)
     seq = random_seq(rng, 30_000, n_prob=0.008)

@@ -1,7 +1,7 @@
 """Wide-code (k >= 16) engine: BASELINE config 5 territory.
 
 The reference's own MAX_K=16 is UB (SURVEY §2.1 #4); these tests pin
-the TPU build's extension past it: (hi, lo) int32 pair codes, the 2-key
+this build's extension past it: (hi, lo) int32 pair codes, the 2-key
 sort screen, sparse host spectra, and the exact f64 chain replay — all
 without any 4^k table anywhere (68 GB at k=17).
 """
@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.encoding import kmer_codes_np, pack
-from kmer_spans_tpu.oracle import count_spectrum, find_regions
-from kmer_spans_tpu.oracle.reference import count_spectrum_sparse
-from kmer_spans_tpu.stats.ranks import SparseRanks, sparse_mass
-from kmer_spans_tpu.spans.pipeline import (
+from kmer_spans.encoding import kmer_codes_np, pack
+from kmer_spans.oracle import count_spectrum, find_regions
+from kmer_spans.oracle.reference import count_spectrum_sparse
+from kmer_spans.stats.ranks import SparseRanks, sparse_mass
+from kmer_spans.spans.pipeline import (
     finish_wide_spans,
     make_wide_span_pipeline,
     unpack_wide_outputs,
@@ -28,7 +28,7 @@ from test_sortscreen import _plant
 def test_sparse_mass_matches_dense_oracle():
     """sparse_mass + chain ranks over present codes == the dense oracle's
     weighted_ranks, bit for bit (k=6 where both forms exist)."""
-    from kmer_spans_tpu.oracle import weighted_ranks
+    from kmer_spans.oracle import weighted_ranks
 
     rng = np.random.default_rng(5)
     seq = _plant(random_seq(rng, 30_000, n_prob=0.005),
@@ -50,7 +50,7 @@ def test_sparse_mass_matches_dense_oracle():
 def test_native_sparse_counter_matches_numpy():
     """ks_count_sparse (threads partition code space, sort, merge) ==
     the numpy sparse oracle, codes and counts, at k=17 and k=8."""
-    from kmer_spans_tpu.utils import native
+    from kmer_spans.utils import native
 
     rng = np.random.default_rng(77)
     seq = _plant(random_seq(rng, 50_000, n_prob=0.01),
@@ -67,7 +67,7 @@ def test_native_sparse_counter_matches_numpy():
 
 def test_blocked_codes_wide_matches_numpy():
     """Device (hi, lo) pair codes == int64 numpy rolling codes, k=17."""
-    from kmer_spans_tpu.ops.blocked import blocked_codes_wide
+    from kmer_spans.ops.blocked import blocked_codes_wide
 
     k = 17
     rng = np.random.default_rng(9)
@@ -86,9 +86,9 @@ def test_blocked_codes_wide_matches_numpy():
 
 def test_wide_sort_screen_is_sound_k16():
     """s_int/SCALE >= rank - thr at every scored position (k=16)."""
-    from kmer_spans_tpu.ops.blocked import blocked_codes_wide, blocked_scored
-    from kmer_spans_tpu.ops.gather import SCREEN_SCALE, screen_thr_q
-    from kmer_spans_tpu.ops.sortscreen import sort_screen_scores_wide
+    from kmer_spans.ops.blocked import blocked_codes_wide, blocked_scored
+    from kmer_spans.ops.gather import SCREEN_SCALE, screen_thr_q
+    from kmer_spans.ops.sortscreen import sort_screen_scores_wide
 
     k = 16
     rng = np.random.default_rng(31)
@@ -120,7 +120,7 @@ def test_wide_sort_screen_is_sound_k16():
 def test_api_kmer_wide_regions_backends_agree():
     """Public surface: multi-sequence k=17, jax pipeline == host oracle,
     coordinates mapped back per sequence."""
-    from kmer_spans_tpu.api import kmer_wide_regions
+    from kmer_spans.api import kmer_wide_regions
 
     k = 17
     rng = np.random.default_rng(71)

@@ -12,10 +12,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from kmer_spans_tpu.oracle import find_regions
-from kmer_spans_tpu.oracle.reference import count_spectrum_sparse
-from kmer_spans_tpu.parallel.wide_scan import wide_low_comp_regions
-from kmer_spans_tpu.stats.ranks import SparseRanks
+from kmer_spans.oracle import find_regions
+from kmer_spans.oracle.reference import count_spectrum_sparse
+from kmer_spans.parallel.wide_scan import wide_low_comp_regions
+from kmer_spans.stats.ranks import SparseRanks
 
 from conftest import random_seq
 from test_span_pipeline import _nbases
@@ -43,6 +43,7 @@ def test_wide_sharded_matches_oracle(k):
     res = wide_low_comp_regions(
         mesh8(), nb, k, min_w, min_s, thr=thr, block=512, cand_blocks=16)
     assert not res.overflow and not res.fallback
+    assert res.devices == 8
     ucodes, ucounts, _ = count_spectrum_sparse(seq, k)
     sr = SparseRanks(ucodes, ucounts)
     expect = find_regions(seq, 0, min_w, min_s, sr, k, thr)
@@ -54,7 +55,7 @@ def test_wide_sharded_matches_oracle(k):
 def test_wide_sharded_matches_single_chip_pipeline():
     """Mesh result == single-chip wide pipeline result (same finisher
     discipline, different screen plumbing) at k=17."""
-    from kmer_spans_tpu.spans.pipeline import (
+    from kmer_spans.spans.pipeline import (
         finish_wide_spans,
         make_wide_span_pipeline,
         unpack_wide_outputs,

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kmer_spans_tpu.encoding import kmer_to_code, pack
-from kmer_spans_tpu.ops.blocked import blocked_codes
-from kmer_spans_tpu.ops.window import blocked_prefix_sum, windowed_counts_device
-from kmer_spans_tpu.oracle import windowed_distributions
+from kmer_spans.encoding import kmer_to_code, pack
+from kmer_spans.ops.blocked import blocked_codes
+from kmer_spans.ops.window import blocked_prefix_sum, windowed_counts_device
+from kmer_spans.oracle import windowed_distributions
 
 from conftest import random_seq
 
@@ -67,7 +67,7 @@ def test_streaming_window_engine_matches_oracle():
     positions): dist AND per-position counts must equal the oracle across
     chunk boundaries and N gaps, for sequences shorter and longer than
     the chunk."""
-    from kmer_spans_tpu.parallel.window_stream import StreamingWindowEngine
+    from kmer_spans.parallel.window_stream import StreamingWindowEngine
 
     rng = np.random.default_rng(3)
     k, window = 2, 20
@@ -91,7 +91,7 @@ def test_streaming_window_engine_matches_oracle():
 
 def test_streaming_window_engine_int16_positions():
     """window + 2 > 255 switches the packed positions to int16."""
-    from kmer_spans_tpu.parallel.window_stream import StreamingWindowEngine
+    from kmer_spans.parallel.window_stream import StreamingWindowEngine
 
     rng = np.random.default_rng(5)
     k, window = 1, 300
@@ -114,13 +114,13 @@ def test_streaming_window_engine_int16_positions():
 
 def test_windowed_multi_sequence_matches_per_sequence():
     """Per-sequence mode (one program for a scaffold cohort) must equal
-    running the engine per scaffold — the TPU-native mclapply shape
+    running the engine per scaffold — the device mclapply shape
     (test.R:553-567)."""
     import jax.numpy as jnp
     import numpy as np
 
-    from kmer_spans_tpu.ops.blocked import blocked_codes
-    from kmer_spans_tpu.ops.window import windowed_counts_device
+    from kmer_spans.ops.blocked import blocked_codes
+    from kmer_spans.ops.window import windowed_counts_device
 
     rng = np.random.default_rng(99)
     k, window, B = 2, 40, 256
